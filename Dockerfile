@@ -6,8 +6,8 @@
 #   docker build -t colormipsearch-tpu .
 #   docker run --rm colormipsearch-tpu colorDepthSearch --help
 #
-# For TPU hosts install the TPU extra instead of CPU jax:
-#   docker build --build-arg JAX_EXTRA=tpu -t colormipsearch-tpu:tpu .
+# For NVIDIA GPU hosts install the CUDA extra instead of CPU jax:
+#   docker build --build-arg JAX_EXTRA=cuda -t colormipsearch-tpu:cuda .
 
 FROM python:3.12-slim AS builder
 ARG JAX_EXTRA=""
@@ -22,7 +22,7 @@ COPY native ./native
 
 # prebuild the native TIFF/PNG batch decoder so first use never
 # compiles inside the runtime container (io/native_decoder.py falls
-# back to building into the user cache otherwise)
+# back to building into its artifact cache otherwise)
 RUN make -C native \
     && mkdir -p /opt/cmtpu-native \
     && cp native/libcdmdecoder.so /opt/cmtpu-native/
@@ -37,11 +37,11 @@ COPY --from=builder /usr/local/bin/colormipsearch-tpu \
     /usr/local/bin/colormipsearch-tpu
 COPY --from=builder /opt/cmtpu-native /opt/cmtpu-native
 
-# the decoder loader picks up the prebuilt .so from the cache dir
-# (io/native_decoder.py: installed-without-source path)
+# the decoder loader picks up the prebuilt .so from the artifact cache
+# (utils/caches.py; io/native_decoder.py installed-without-source path)
 ENV COLORMIPSEARCH_TPU_CACHE=/opt/cmtpu-native
 # persistent XLA compilation cache across container runs (mount it)
-ENV COLORMIPSEARCH_TPU_JAX_CACHE=/cache/jax
+ENV JAX_COMPILATION_CACHE_DIR=/cache/jax
 VOLUME ["/cache"]
 
 WORKDIR /data

@@ -1,4 +1,4 @@
-"""TPU-native color depth MIP search engine.
+"""Color depth MIP search engine on an accelerator (JAX).
 
 Library surface (the CLI in `cli/` wraps these):
 

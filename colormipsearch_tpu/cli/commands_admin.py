@@ -644,7 +644,7 @@ def cmd_copy_segmentation(args) -> int:
 
 
 # -------------------------------------------------------------------------
-# precomputeVariants (TPU-native addition)
+# precomputeVariants (addition: the reference consumes these variants)
 # -------------------------------------------------------------------------
 
 
@@ -684,11 +684,11 @@ def cmd_precompute_variants(args) -> int:
     from pathlib import Path
 
     import numpy as np
-    from PIL import Image
     from scipy import ndimage
 
     from colormipsearch_tpu.io import mips as mips_io
     from colormipsearch_tpu.io.image import read_image
+    from colormipsearch_tpu.io.png import write_png
     from colormipsearch_tpu.oracle.shape import dilate_rgb, mask_rgb
 
     out = Path(args.outputDir)
@@ -714,15 +714,13 @@ def cmd_precompute_variants(args) -> int:
             if args.withGradient:
                 dist = ndimage.distance_transform_edt(~fg)
                 grad = np.minimum(np.rint(dist), 0xFFFF).astype(np.uint16)
-                # uint16 auto-detects I;16 (the explicit mode= form is
-                # deprecated for removal in Pillow 13)
-                Image.fromarray(grad).save(
-                    grad_dir / f"{stem}{args.gradient_suffix}.png")
+                write_png(grad_dir / f"{stem}{args.gradient_suffix}.png",
+                          grad)
             if args.withZgap:
                 zgap = dilate_rgb(mask_rgb(rgb, args.maskThreshold),
                                   args.negativeRadius)
-                Image.fromarray(zgap).save(
-                    zgap_dir / f"{stem}{args.zgap_suffix}.png")
+                write_png(zgap_dir / f"{stem}{args.zgap_suffix}.png",
+                          zgap)
             n += 1
     LOG.info("precomputed variants for %d images into %s", n, out)
     return 0

@@ -147,7 +147,7 @@ def configure_gradient_score_v2(sp):
     sp.add_argument("--no-pretty-print", dest="noPrettyPrint",
                     action="store_true")
     sp.add_argument("--use-device", action="store_true", default=True,
-                    help="use the TPU split shape kernel (default)")
+                    help="use the device split shape kernel (default)")
     sp.add_argument("--no-use-device", dest="use_device",
                     action="store_false")
     sp.add_argument("--packed-variants-store", dest="packStore",

@@ -19,12 +19,13 @@ from colormipsearch_tpu.cli import (
     commands_v2,
     common,
 )
+from colormipsearch_tpu.utils import caches
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="colormipsearch-tpu",
-        description="TPU-native color depth MIP search",
+        description="color depth MIP search on an accelerator",
         # JCommander-style @argfile expansion (one argument per line),
         # used by the reference's grid scripts (cmd/Main.java @file)
         fromfile_prefix_chars="@")
@@ -132,32 +133,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _enable_compilation_cache() -> None:
-    """Persist XLA compilations across CLI invocations (first compile of
-    the scoring kernels is expensive; every later run reuses it)."""
-    import os
-
-    cache_dir = os.environ.get(
-        "COLORMIPSEARCH_TPU_JAX_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache",
-                     "colormipsearch_tpu", "jax"))
-    try:
-        import jax
-
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # never block the CLI on cache setup
-        pass
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(levelname).1s %(name)s %(message)s")
-    _enable_compilation_cache()
+    caches.enable_compilation_cache()
     if args.cacheSize > 0:
         from colormipsearch_tpu.io.cache import initialize_cache
 

@@ -1,15 +1,17 @@
 """Image decoding to packed numpy arrays.
 
 Replaces the reference's ImageJ/ImageIO decode layer
-(imageprocessing/ImageArrayUtils.java, LocalTiffDecoder.java) with a
-PIL-based decoder producing numpy arrays ready for device upload:
+(imageprocessing/ImageArrayUtils.java, LocalTiffDecoder.java) with
+decoders producing numpy arrays ready for device upload:
 
   * RGB images  -> uint8 [H, W, 3]
   * 8-bit gray  -> uint8 [H, W]
   * 16-bit gray -> uint16 [H, W]
 
-Color depth MIPs are RGB TIFF/PNG (PackBits/LZW/uncompressed TIFFs are all
-handled by PIL); gradient images are 16-bit gray; z-gap variants are RGB.
+Color depth MIPs are RGB TIFF/PNG; gradient images are 16-bit gray;
+z-gap variants are RGB.  TIFF and PNG go through the native decoder
+(native/cdm_decoder.cpp).  Pillow is optional: it decodes the other
+formats and the encodings the native decoder rejects.
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ import io as _io
 import os
 
 import numpy as np
-from PIL import Image
 
 
 class ImageType(enum.Enum):
@@ -59,7 +60,7 @@ def is_image_file(name: str) -> bool:
     return name.lower().endswith(SUPPORTED_SUFFIXES)
 
 
-def _from_pil(img: Image.Image) -> ImageData:
+def _from_pil(img) -> ImageData:
     if img.mode in ("RGB", "RGBA", "P"):
         arr = np.asarray(img.convert("RGB"), dtype=np.uint8)
         return ImageData(ImageType.RGB, arr)
@@ -120,7 +121,7 @@ def read_image(path_or_bytes) -> ImageData:
     TIFFs and PNGs go through the native C++ decoder
     (native/cdm_decoder.cpp) when it is available; everything else (and
     any native failure, e.g. palette or interlaced PNGs) falls back to
-    PIL.
+    Pillow, which is then required.
     """
     if isinstance(path_or_bytes, (bytes, bytearray)):
         data = bytes(path_or_bytes)
@@ -134,9 +135,17 @@ def read_image(path_or_bytes) -> ImageData:
         native = _try_native(data)
         if native is not None:
             return native
-        img = Image.open(_io.BytesIO(data))
-    else:
-        img = Image.open(path_or_bytes)
+    try:
+        from PIL import Image
+    except ImportError:
+        what = ("image bytes" if isinstance(path_or_bytes,
+                                            (bytes, bytearray))
+                else str(path_or_bytes))
+        raise ValueError(
+            f"cannot decode {what}: not a TIFF/PNG the native decoder "
+            "reads, and Pillow is not installed") from None
+    img = Image.open(_io.BytesIO(data) if data is not None
+                     else path_or_bytes)
     with img:
         img.load()
         return _from_pil(img)

@@ -1,8 +1,9 @@
 """ctypes binding for the native TIFF decoder (native/cdm_decoder.cpp).
 
-The library is built on demand with g++ into the user cache dir; when the
-toolchain or build is unavailable every entry point reports unavailable
-and callers fall back to the PIL path (io/image.py).
+The library is built on demand with g++ into the checkout's cache dir
+(utils/caches.py); when the toolchain or build is unavailable every
+entry point reports unavailable and callers fall back to the Pillow
+path (io/image.py).
 """
 
 from __future__ import annotations
@@ -34,11 +35,11 @@ _lib_failed = False
 
 
 def _build_lib() -> str | None:
-    cache = os.environ.get(
-        "COLORMIPSEARCH_TPU_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache",
-                     "colormipsearch_tpu"))
-    os.makedirs(cache, exist_ok=True)
+    from colormipsearch_tpu.utils.caches import artifact_dir
+
+    cache = artifact_dir()
+    if cache is None:
+        return None  # an installed package with no artifact directory
     so = os.path.join(cache, f"libcdmdecoder.v{_ABI_VERSION}.so")
     if not os.path.exists(_SRC):
         # installed without the native source: use a prebuilt cache .so

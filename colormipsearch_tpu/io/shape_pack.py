@@ -2,11 +2,11 @@
 
 The shape (gradient-area-gap) pass is host-bound: per target it decodes
 the CDM + GradientImage (+ ZGapImage or an r=20 dilation fallback) and
-runs the slice LUT before the device kernel sees anything
-(docs/DESIGN.md §6).  The reference's answer is precomputed variant
+runs the slice LUT before the device kernel sees anything.  The
+reference's answer is precomputed variant
 archives that STILL re-decode every run (README.md:358 `_20pxRGBMAX`
-zips; ShapeMatchColorDepthSearchAlgorithm.java:142-168).  This store is
-the TPU-native upgrade: the query-independent per-target fields are
+zips; ShapeMatchColorDepthSearchAlgorithm.java:142-168).  In this store
+the query-independent per-target fields are
 computed once per library and persisted raw + mmap-able, so every later
 run's per-target host work collapses to column gathers at the mask's
 support rows.

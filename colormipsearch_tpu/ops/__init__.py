@@ -1,1 +1,1 @@
-"""TPU device kernels (JAX/XLA/Pallas) for color depth search."""
+"""Device kernels (JAX/XLA) for color depth search."""

@@ -1,10 +1,10 @@
-"""Batched TPU pixel-match (positive CDS) scoring kernel.
+"""Batched device pixel-match (positive CDS) scoring kernel.
 
-TPU-first redesign of the reference hot loop
+Device redesign of the reference hot loop
 (cds/PixelMatchColorDepthSearchAlgorithm.calculateScore:235-263):
 
   * targets are packed ONCE into pixel-major [P, T] uint32 summary planes
-    (ops/common.py), resident in device HBM; a gather at one query
+    (ops/common.py), resident in device memory; a gather at one query
     position reads the lane-contiguous summaries of ALL T targets,
   * one kernel invocation scores one query against a whole target shard
     for every shift/mirror variant: scores[V, T] = sum over query
@@ -295,9 +295,9 @@ def query_side_rules(q_cls, q_s, q_p, *, ztol_num: int, ztol_den: int):
                 ztol_num * q_p.  The same-class test
                 |q_s*t_p - t_s*q_p| * b <= a * q_p * t_p runs entirely
                 in f32: every product is < 2^24 (b*255*255 <= 1.66e7
-                for b <= 255), so f32 arithmetic is EXACT and the VPU
-                avoids int32 multiplies (slow on TPU) in favor of
-                FMA-capable float lanes.
+                for b <= 255), so f32 arithmetic is EXACT and runs
+                on FMA-capable float lanes instead of int32
+                multiplies.
       tc:       int32 [2, ...] — adjacency rule target class (0 = off)
       bound:    f32  [2, ...] — ratio bound B
       upper:    bool [2, ...] — True for upper (t_r <= B), else lower
@@ -464,8 +464,8 @@ def score_query_against_planes_raw(t_planes: jax.Array, pos: jax.Array,
     n_variants = pos.shape[0]
     if n_variants <= 32:
         # unrolled: the variants are independent, so emitting them as
-        # separate gathers+predicates lets XLA overlap HBM gathers with
-        # VPU work (lax.scan would serialize the iterations)
+        # separate gathers+predicates lets XLA overlap memory gathers
+        # with the predicates (lax.scan would serialize the iterations)
         outs = [per_variant(None, pos[v])[1] for v in range(n_variants)]
         scores = jnp.stack([o[0] for o in outs])
         flags = jnp.stack([o[1] for o in outs])
@@ -596,7 +596,7 @@ def reduce_variants_device(scores: jax.Array, flags: jax.Array,
 # key = (cls << 15) | rank-of-ratio (ops/common.pack_target_planes_keys)
 # and each query pixel carries THREE precomputed key intervals (same
 # class + <= 2 adjacent classes).  The per-element test is three unsigned
-# range checks on the gathered key — ~3x fewer VPU intermediates than
+# range checks on the gathered key — ~3x fewer vector intermediates than
 # predicate_from_rules and, because the interval endpoints are found by
 # bisecting the float64 oracle itself (oracle/pixel.pixel_gap), the
 # device verdict is bit-identical to the reference with NO ambiguity
@@ -911,11 +911,9 @@ def reduce_variant_scores(scores: np.ndarray, plan: QueryPlan):
 # position sets share the x-dilated union U = {q + dx}.  Gathering U once
 # per dy-set (2*3 gathers instead of 18) and evaluating the dx variants as
 # predicate LANES with per-lane interval constants halves the gathered
-# rows/bytes — the measured kernel bottleneck (docs/DESIGN.md §6: row-issue
-# -bound gathers) — for 1.5x more range tests.  An earlier union kernel on
-# the banded-rules predicate lost 18% on hardware because that predicate
-# was already VPU-bound; the interval predicate is ~3x lighter, so the
-# trade reverses (A/B: scripts/perf_sweep.py --union-keys).
+# rows/bytes for 1.5x more range tests — a trade that pays when the
+# gathers, not the tests, bound the kernel; the interval predicate is
+# ~3x lighter than the banded rules, which is what makes it pay.
 #
 # Bit-exactness: a union row u on query row y serves lane dx iff
 # q = u - dx is a query position with q.x + dx in-bounds — exactly the
@@ -938,7 +936,7 @@ class UnionKeyPlan:
     # slot-2 segmentation (full-union plans): elements are PERMUTED so
     # the ones with a live second interval window in ANY lane form the
     # prefix [0, u2); the kernel then runs slot-2 tests only there
-    # (~21% of elements at production tolerances — docs/DESIGN.md §6).
+    # (~21% of elements at production tolerances).
     # -1 = unsegmented (x-union plans, or a single-slot table).
     u2: int = -1
     # per-(lane, element) QUERY KEYS int32 [L, U] (0 = inactive) — the
@@ -1378,70 +1376,22 @@ def score_query_union_keys_raw(t_keys: jax.Array, u_pos: jax.Array,
     prefix — elements beyond it have empty slot-2 windows that can never
     match, so skipping their tests is exact.  At production tolerances
     only ~21% of elements carry a second window, cutting the kernel's
-    dominant VPU work (the per-lane range tests) by ~1.5x
-    (docs/DESIGN.md §6).  None = test every slot full-width.
+    per-lane range tests by ~1.5x.  None = test every slot full-width.
     """
     n_lanes = lane_lo.shape[0]
     n_slots = lane_lo.shape[1]
     u_count = lane_lo.shape[2]
     seg = (u2 is not None and n_slots == 2 and 0 <= u2 < u_count)
-    # Chunked software pipeline (round 5): the kernel is RANGE-TEST
-    # (VPU)-bound with only partial gather/test overlap (kernel
-    # surgery, DESIGN §6 round-5 entry), so the union is processed in
-    # contiguous chunks — XLA overlaps the gather of chunk i+1 with
-    # the tests of chunk i.  Chunk bounds are MULTIPLES OF u2 so chunk
-    # 0 is exactly the slot-2 prefix: its slot-2 test reuses the
-    # chunk's own gather (no separate prefix re-gather, and no
-    # mid-chunk slicing — the r4 fusion-break).  Measured at
-    # T=4096×B=8: 3.26M vs 2.51M pairs/s unchunked (+29%,
-    # bench_runs/chunked_union_*.json); misaligned bounds (k=6) lose
-    # most of the win.  CDS_UNION_CHUNKS=0 restores the unchunked
-    # form; a value N forces N equal u2-aligned chunks.
-    bounds = _union_chunk_bounds(u_count, u2 if seg else None)
     outs = []
     pos_sets = [u_pos, mu_pos] if mu_pos.shape[0] else [u_pos]
     for pos in pos_sets:
         for i in range(pos.shape[0]):
-            if len(bounds) > 2:
-                cnts = None
-                for c0, c1 in zip(bounds[:-1], bounds[1:]):
-                    g = jnp.take(t_keys, pos[i, c0:c1],
-                                 axis=0).astype(jnp.uint32)
-                    # slot-2 rows live only below u2; aligned bounds
-                    # make this all-or-nothing per chunk
-                    lo2 = min(max((u2 or 0) - c0, 0), c1 - c0)
-                    g2 = g[:lo2] if seg and lo2 > 0 else None
-                    step = []
-                    for j in range(n_lanes):
-                        lo, sp = lane_lo[j], lane_span[j]
-                        m = (g - lo[0][c0:c1, None]) <= sp[0][c0:c1, None]
-                        if seg:
-                            # disjoint-window segmented form: indicator
-                            # sums ADD (no OR); slot 2 only on the
-                            # aligned prefix rows of this chunk
-                            cnt = m.sum(axis=0, dtype=jnp.int32)
-                            if g2 is not None:
-                                m2 = ((g2 - lo[1][c0:c0 + lo2, None])
-                                      <= sp[1][c0:c0 + lo2, None])
-                                cnt = cnt + m2.sum(axis=0,
-                                                   dtype=jnp.int32)
-                        else:
-                            for s in range(1, n_slots):
-                                m = m | ((g - lo[s][c0:c1, None])
-                                         <= sp[s][c0:c1, None])
-                            cnt = m.sum(axis=0, dtype=jnp.int32)
-                        step.append(cnt)
-                    cnts = step if cnts is None else [
-                        a + b for a, b in zip(cnts, step)]
-                outs.extend(cnts)
-                continue
             g = jnp.take(t_keys, pos[i], axis=0).astype(jnp.uint32)  # [U, T]
-            # unchunked fallback — segmented form: a SEPARATE small
-            # gather for the slot-2 prefix (slicing the big gathered
-            # intermediate defeated XLA fusion, r4).  An element's two
-            # windows live in distinct class segments (verified at plan
-            # build), so a key matches at most one and the two indicator
-            # sums add without an OR.
+            # segmented form: a SEPARATE small gather for the slot-2
+            # prefix (slicing the big gathered intermediate defeated XLA
+            # fusion).  An element's two windows live in distinct class
+            # segments (verified at plan build), so a key matches at
+            # most one and the two indicator sums add without an OR.
             g2 = (jnp.take(t_keys, pos[i, :u2], axis=0)
                   .astype(jnp.uint32) if seg and u2 > 0 else None)
             for j in range(n_lanes):
@@ -1449,7 +1399,6 @@ def score_query_union_keys_raw(t_keys: jax.Array, u_pos: jax.Array,
                 # slot count is a plan-build property: at production
                 # tolerances every key has <= 2 non-empty windows, and
                 # compact_interval_slots drops the dead third test
-                # (1/3 of the kernel's VPU work)
                 m = (g - lo[0][:, None]) <= sp[0][:, None]
                 if seg:
                     cnt = m.sum(axis=0, dtype=jnp.int32)
@@ -1462,33 +1411,6 @@ def score_query_union_keys_raw(t_keys: jax.Array, u_pos: jax.Array,
                     m = m | ((g - lo[s][:, None]) <= sp[s][:, None])
                 outs.append(m.sum(axis=0, dtype=jnp.int32))
     return jnp.stack(outs)
-
-
-def _union_chunk_bounds(u_count: int, u2: int | None) -> list[int]:
-    """Static chunk bounds for the union software pipeline.
-
-    Aligned to u2 (the slot-2 prefix) so chunk 0 IS the prefix; ~4
-    chunks target the measured optimum; env CDS_UNION_CHUNKS overrides
-    (0 = unchunked)."""
-    import os
-
-    force = os.environ.get("CDS_UNION_CHUNKS")
-    if force is not None:
-        k = int(force)
-        if k <= 1:
-            return [0, u_count]
-        step = max(1, -(-u_count // k))
-        if u2 and 0 < u2 < u_count:
-            step = max(1, round(step / u2)) * u2
-        bounds = list(range(0, u_count, step)) + [u_count]
-        return sorted(set(bounds))
-    if not u2 or not 0 < u2 < u_count:
-        return [0, u_count]  # no aligned prefix: keep unchunked
-    # chunk 0 IS the slot-2 prefix (never a mid-chunk slice); the rest
-    # splits into <=5 roughly-equal chunks no smaller than u2
-    step = max(u2, -(-(u_count - u2) // 5))
-    bounds = [0] + list(range(u2, u_count, step)) + [u_count]
-    return sorted(set(bounds))
 
 
 @functools.partial(jax.jit, static_argnames=("u2",))
@@ -1531,9 +1453,8 @@ def score_query_batch_union_keys_topk(t_keys: jax.Array, u_pos: jax.Array,
     the emit test is monotone in score, so if the k-th fails it, every
     dropped pair fails it too.  If any mask's k-th could still emit the
     caller materializes the dense arrays instead (no recompute).  The
-    dense [B, T] result pull is the production dispatch stage's dominant
-    wire cost on tunneled rigs and the pod-scale bottleneck the mesh
-    top-k path already removes (engine/cds._score_batch)."""
+    [B, k] pull replaces the dense [B, T] result pull, as the mesh
+    top-k path does (engine/cds._score_batch)."""
     best, mirrored, _flags = score_query_batch_union_keys(
         t_keys, u_pos, mu_pos, lane_lo, lane_span, u2=u2)
     scores_k, idx_k = jax.lax.top_k(best, k)
@@ -1544,12 +1465,9 @@ def score_query_batch_union_keys_topk(t_keys: jax.Array, u_pos: jax.Array,
 def split_key_planes(t_keys: jax.Array):
     """int32 [P+1, T] key planes -> (rank uint16, cls uint8) planes.
 
-    3 gathered bytes/element instead of 4.  For the CLASSIC kernel this
-    encoding is a measured dead end (row-issue-bound gathers,
-    DESIGN §6), but the full-union form runs at ~7.7M rows/s — far
-    below the ~36M rows/s issue ceiling — and is BANDWIDTH-bound at
-    ~126 GB/s, so two thinner gathers (0.75x bytes) trade favorably.
-    The kernel reconstructs k = (cls << KEY_RANK_BITS) | rank with one
+    3 gathered bytes/element instead of 4: two thinner gathers (0.75x
+    bytes) for a kernel bound by the bytes it gathers.  The kernel
+    reconstructs k = (cls << KEY_RANK_BITS) | rank with one
     shift+or per element.
     """
     from colormipsearch_tpu.ops.common import KEY_RANK_BITS
@@ -1644,8 +1562,7 @@ def expand_union_tables(qidx: jax.Array, key_list: jax.Array,
     # pack the four per-key values into one row so the expansion is a
     # single ROW gather (XLA's fast take-axis-0 path, the same lowering
     # as the kernel's key-plane gather) instead of four element
-    # gathers — the element-gather form measured 1.4-1.7 s per
-    # 256-mask batch of device-serial time (scripts/warm_cost_bench.py)
+    # gathers
     tab = jnp.stack([tab_lo[0], tab_lo[1],
                      tab_span[0], tab_span[1]], axis=1)  # [N, 4]
 

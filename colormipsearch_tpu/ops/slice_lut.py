@@ -19,19 +19,10 @@ import os
 import numpy as np
 
 from colormipsearch_tpu.oracle import shape as shape_oracle
+from colormipsearch_tpu.utils.caches import artifact_dir
 
-_CACHE_ENV = "COLORMIPSEARCH_TPU_CACHE"
 _LUT_FILE = "rgb_slice_lut_v1.npy"
 _lut_mem: np.ndarray | None = None
-
-
-def _cache_dir() -> str:
-    d = os.environ.get(_CACHE_ENV)
-    if not d:
-        d = os.path.join(os.path.expanduser("~"), ".cache",
-                         "colormipsearch_tpu")
-    os.makedirs(d, exist_ok=True)
-    return d
 
 
 def build_slice_lut(chunk: int = 1 << 20) -> np.ndarray:
@@ -52,7 +43,13 @@ def get_slice_lut() -> np.ndarray:
     global _lut_mem
     if _lut_mem is not None:
         return _lut_mem
-    path = os.path.join(_cache_dir(), _LUT_FILE)
+    cache = artifact_dir()
+    if cache is None:
+        # an installed package with no artifact directory: keep the
+        # table in memory only
+        _lut_mem = build_slice_lut()
+        return _lut_mem
+    path = os.path.join(cache, _LUT_FILE)
     if os.path.exists(path):
         try:
             lut = np.load(path)

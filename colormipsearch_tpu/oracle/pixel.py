@@ -5,9 +5,9 @@ reference (cds/AbstractColorDepthSearchAlgorithm.java:157-390 and
 cds/PixelMatchColorDepthSearchAlgorithm.java) as vectorized numpy float64.
 IEEE-754 float64 with identical operation order makes this bit-identical
 to the Java implementation; it serves as the correctness oracle for the
-TPU kernels and as the exact fallback for ambiguous boundary pixels.
+device kernels and as the exact fallback for ambiguous boundary pixels.
 
-Design notes (TPU-first reformulation, shared with ops/):
+Design notes (device reformulation, shared with ops/):
   * every RGB pixel is summarized by (class, s, p): a 6-way two-channel
     dominance class, the secondary channel value s and the primary
     channel value p; the hue ratio is s/p,

@@ -5,7 +5,7 @@ Re-states the negative/shape scoring semantics of the reference
  cds/GradientAreaGapUtils.java,
  cds/ColorDepthSearchAlgorithmProviderFactory.java:77-137) as vectorized
 numpy.  Bit-identical to the Java implementation; serves as the oracle for
-the TPU shape kernels.
+the device shape kernels.
 
 Key reformulations shared with the device kernels:
 

@@ -1,16 +1,18 @@
 """Multi-device sharding of the all-pairs search.
 
-TPU-native replacement of the reference's distribution mechanisms
-(Spark RDD over targets — cmd/cdsprocess/SparkColorMIPSearchProcessor.java:43-81;
-LSF tile sharding — scripts/submitCDSBatch.sh): the target library is
-sharded over a 1-D device mesh along the `targets` axis (each device holds
-its shard of the packed uint32 summary planes in HBM), masks are
-replicated, and one `shard_map`-ped step scores a mask against every
-shard concurrently.  Cross-device reductions that the reference does
-driver-side (per-mask global max for normalization, top-k merge —
-CalculateGradientScoresCmd.java:443-459, ItemsHandling.selectTopRanked)
-become ICI collectives: `pmax` for the global max, all_gather of
-per-shard top-k for the merged ranking.
+Replacement of the reference's distribution mechanisms (Spark RDD over
+targets — cmd/cdsprocess/SparkColorMIPSearchProcessor.java:43-81; LSF
+tile sharding — scripts/submitCDSBatch.sh): the target library is
+sharded over a 1-D device mesh along the `targets` axis (each device
+holds its shard of the packed uint32 summary planes in device memory),
+masks are replicated, and one `shard_map`-ped step scores a mask
+against every shard concurrently.  Cross-device reductions that the
+reference does driver-side (per-mask global max for normalization,
+top-k merge — CalculateGradientScoresCmd.java:443-459,
+ItemsHandling.selectTopRanked) become collectives, which XLA hands to
+NCCL: `pmax` for the global max, all_gather of per-shard top-k for the
+merged ranking.  The cards of one host reach each other all to all over
+NVLink, so the mesh stays 1-D over targets.
 """
 
 from __future__ import annotations
@@ -20,13 +22,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-if hasattr(jax, "shard_map"):           # jax >= 0.8 public API
-    def shard_map(f, *, mesh, in_specs, out_specs, check_rep=True):
-        return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=check_rep)
-else:                                   # pre-0.8 experimental module
-    from jax.experimental.shard_map import shard_map
 
 from colormipsearch_tpu.ops import pixel_match
 
@@ -46,7 +41,7 @@ def shard_target_planes(mesh: Mesh, planes) -> jax.Array:
     across the mesh (works for [P, T] planes and the shape pass's
     stacked [2, S, T] orientation planes).
 
-    Under `jax.distributed` (process_count > 1, e.g. a pod slice) the
+    Under `jax.distributed` (process_count > 1, e.g. several hosts) the
     mesh spans non-addressable devices, so the placement goes through
     `make_array_from_callback`: every process holds the same host
     planes (each loads the full target list from the shared
@@ -126,12 +121,12 @@ def make_sharded_search_step(mesh: Mesh, *, target_threshold: int,
     if top_k > 0:
         out_specs = out_specs + (P(), P())
 
-    step = shard_map(
+    step = jax.shard_map(
         local_step, mesh=mesh,
         in_specs=(P(None, TARGET_AXIS), P(None, None), P(None), P(None),
                   P(None)),
         out_specs=out_specs,
-        check_rep=False)
+        check_vma=False)
     return jax.jit(step)
 
 
@@ -156,14 +151,14 @@ def make_sharded_batch_step_split(mesh: Mesh, *, ztol_num: int,
         global_max = jax.lax.pmax(best.max(axis=-1), TARGET_AXIS)
         return best, mirrored, pair_flags, global_max
 
-    step = shard_map(
+    step = jax.shard_map(
         local_step, mesh=mesh,
         in_specs=(P(None, TARGET_AXIS), P(None, TARGET_AXIS),
                   P(None, None, None), P(None, None), P(None, None),
                   P(None, None)),
         out_specs=(P(None, TARGET_AXIS), P(None, TARGET_AXIS),
                    P(None, TARGET_AXIS), P(None)),
-        check_rep=False)
+        check_vma=False)
     return jax.jit(step)
 
 
@@ -186,22 +181,22 @@ def make_sharded_shape_step(mesh: Mesh, *, both: bool = False):
         def local_step(t_pack2, q_pack2):
             return shape_score.shape_score_pairs_both_raw(t_pack2, q_pack2)
 
-        step = shard_map(
+        step = jax.shard_map(
             local_step, mesh=mesh,
             in_specs=(P(None, None, TARGET_AXIS), P(None, None)),
             out_specs=(P(None, TARGET_AXIS), P(None, TARGET_AXIS),
                        P(None, TARGET_AXIS)),
-            check_rep=False)
+            check_vma=False)
         return jax.jit(step)
 
     def local_step(t_pack, q_pack):
         return shape_score.shape_score_pairs_raw(t_pack, q_pack)
 
-    step = shard_map(
+    step = jax.shard_map(
         local_step, mesh=mesh,
         in_specs=(P(None, TARGET_AXIS), P(None)),
         out_specs=(P(TARGET_AXIS), P(TARGET_AXIS), P(TARGET_AXIS)),
-        check_rep=False)
+        check_vma=False)
     return jax.jit(step)
 
 
@@ -217,13 +212,13 @@ def make_sharded_shape_split_step(mesh: Mesh):
         return shape_score.shape_score_pairs_split_raw(
             t_gap, q_gap, t_he, q_he)
 
-    step = shard_map(
+    step = jax.shard_map(
         local_step, mesh=mesh,
         in_specs=(P(None, None, TARGET_AXIS), P(None, None),
                   P(None, None, TARGET_AXIS), P(None, None)),
         out_specs=(P(None, TARGET_AXIS), P(None, TARGET_AXIS),
                    P(None, TARGET_AXIS)),
-        check_rep=False)
+        check_vma=False)
     return jax.jit(step)
 
 
@@ -282,12 +277,12 @@ def make_sharded_batch_step_keys(mesh: Mesh, *, n_straight: int,
         best, mirrored, pair_flags = jax.lax.map(one, (pos, lo, span))
         return _finish_batched_step(best, mirrored, pair_flags, top_k)
 
-    step = shard_map(
+    step = jax.shard_map(
         local_step, mesh=mesh,
         in_specs=(P(None, TARGET_AXIS), P(None, None, None),
                   P(None, None, None), P(None, None, None)),
         out_specs=_batched_out_specs(top_k),
-        check_rep=False)
+        check_vma=False)
     return jax.jit(step)
 
 
@@ -313,13 +308,13 @@ def make_sharded_batch_step_union_keys(mesh: Mesh, *, top_k: int = 0,
             one, (u_pos, mu_pos, lane_lo, lane_span))
         return _finish_batched_step(best, mirrored, pair_flags, top_k)
 
-    step = shard_map(
+    step = jax.shard_map(
         local_step, mesh=mesh,
         in_specs=(P(None, TARGET_AXIS), P(None, None, None),
                   P(None, None, None), P(None, None, None, None),
                   P(None, None, None, None)),
         out_specs=_batched_out_specs(top_k),
-        check_rep=False)
+        check_vma=False)
     return jax.jit(step)
 
 
@@ -344,13 +339,13 @@ def make_sharded_batch_step_union_qkeys(mesh: Mesh, *, top_k: int = 0,
             one, (u_pos, mu_pos, qidx, key_list))
         return _finish_batched_step(best, mirrored, pair_flags, top_k)
 
-    step = shard_map(
+    step = jax.shard_map(
         local_step, mesh=mesh,
         in_specs=(P(None, TARGET_AXIS), P(None, None, None),
                   P(None, None, None), P(None, None, None),
                   P(None, None), P(None, None), P(None, None)),
         out_specs=_batched_out_specs(top_k),
-        check_rep=False)
+        check_vma=False)
     return jax.jit(step)
 
 
@@ -385,10 +380,10 @@ def make_sharded_batch_step(mesh: Mesh, *, target_threshold: int,
             one, (pos, q_cls, q_s, q_p))
         return _finish_batched_step(best, mirrored, pair_flags, top_k)
 
-    step = shard_map(
+    step = jax.shard_map(
         local_step, mesh=mesh,
         in_specs=(P(None, TARGET_AXIS), P(None, None, None),
                   P(None, None), P(None, None), P(None, None)),
         out_specs=_batched_out_specs(top_k),
-        check_rep=False)
+        check_vma=False)
     return jax.jit(step)

@@ -12,8 +12,8 @@ Modes:
   --run       run tiles sequentially in this process
   --job N     run only tile N (use from a job array: one index per task)
 
-A TPU pod slice runs one process per host with JOB = host index
-(jax.distributed handles intra-process device parallelism; tiles map
+Several hosts run one process each with JOB = host index (each
+process's engine shards its tile over that host's cards; tiles map
 across hosts).
 """
 

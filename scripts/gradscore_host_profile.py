@@ -1,14 +1,13 @@
 """Host-side profile of the gradientScores decode+pack pipeline.
 
-The split shape kernel measures ~3.6M pairs/s on TPU v5e
-(docs/DESIGN.md §6), so end-to-end gradientScores throughput is set by
-the HOST: decoding each target's CDM (RGB), GradientImage (16-bit) and
+End-to-end gradientScores throughput is bounded by the HOST work:
+decoding each target's CDM (RGB), GradientImage (16-bit) and
 ZGapImage (RGB) and packing the support rows
 (ops/shape_score.pack_target_rows_split).  This script synthesizes a
 realistic on-disk workload (production 1210x566 CDMs, ~6% foreground,
 PackBits TIFF CDM + uncompressed 16-bit grad TIFF + PNG zgap, the
-production variant formats) and times each stage on CPU — no TPU
-needed.
+production variant formats) and times each stage on CPU — no
+accelerator needed.
 
     python scripts/gradscore_host_profile.py [--targets N] [--workers K]
 """
@@ -60,7 +59,7 @@ def run_e2e(paths, mask_path, pack_store=None) -> float:
     """End-to-end GradScoreEngine rate (targets/s) on the synthesized
     on-disk workload: decode + select + assemble + device dispatch with
     the production prefetch pipeline.  Run under JAX_PLATFORMS=cpu to
-    measure the HOST pipeline (the CPU 'device' kernel is not the TPU
+    measure the HOST pipeline (the CPU 'device' kernel is not the GPU
     one, but the host side is identical)."""
     import time
 
@@ -228,8 +227,8 @@ def main() -> int:
               f"({1e3 / max(hot, hot2):.2f} ms/target)")
 
         # store-hit HOST side alone (gather + assemble, no device
-        # dispatch): the relevant host ceiling when the device is a
-        # real TPU (kernel 5.6M pairs/s, negligible per target)
+        # dispatch): the host ceiling when the device kernel is
+        # negligible per target
         from colormipsearch_tpu.io.shape_pack import ShapePackStore
 
         store = ShapePackStore(pack_dir, H, W)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""The REAL production shape-pass handoff (round 5 extra).
+"""The production shape-pass handoff.
 
 Takes the production corpus (scripts/production_run.py), generates the
 target variants with the framework's own `precomputeVariants` (the
@@ -12,8 +12,9 @@ CLI outputs end to end.
 
 Result: bench_runs/production_grad_pass_<ts>.json.
 
-Env: PGP_MASKS (256), PGP_TOPK (300), PROD_DIR (/tmp/cds_prod — must
-already hold the synthesized corpus).
+Env: PGP_MASKS (256), PGP_TOPK (300).  The corpus directory is
+scripts/production_run.py's (PROD_DIR, default .cache/cds_prod in the
+checkout); run that script first so it holds the synthesized corpus.
 """
 
 from __future__ import annotations
@@ -28,12 +29,11 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-WORK = os.environ.get("PROD_DIR", "/tmp/cds_prod")
 M = int(os.environ.get("PGP_MASKS", 256))
 TOPK = int(os.environ.get("PGP_TOPK", 300))
 
 sys.path.insert(0, os.path.join(REPO, "scripts"))
-from production_run import run_cli_proc  # noqa: E402  (same env rules)
+from production_run import WORK, run_cli_proc  # noqa: E402
 
 GS_RE = re.compile(r"grad-scored (\d+)/(\d+) matches")
 
@@ -45,7 +45,7 @@ def main() -> int:
 
     # 1. variants (skipped when present from an earlier run)
     grad_dir = os.path.join(var_dir, "grad")
-    n_t = len(glob.glob(os.path.join(targets_dir, "*.tif")))
+    n_t = len(glob.glob(os.path.join(targets_dir, "*.png")))
     t0 = time.perf_counter()
     if len(glob.glob(os.path.join(grad_dir, "*.png"))) != n_t:
         rc = run_cli_proc(
@@ -126,6 +126,7 @@ def main() -> int:
                 "(nBestLines %d) with packed + device-resident store"
                 % TOPK,
     }
+    os.makedirs(os.path.join(REPO, "bench_runs"), exist_ok=True)
     path = os.path.join(REPO, "bench_runs",
                         f"production_grad_pass_{time.strftime('%Y%m%dT%H%M%S')}.json")
     with open(path, "w") as f:

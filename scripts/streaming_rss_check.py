@@ -117,7 +117,7 @@ def main() -> int:
     print(f"streaming saves {saved} MB on {expected} matches "
           f"(~{saved * 1048576 // expected} B/match of accumulation "
           "removed; the remaining RSS is packed planes + decode stacks, "
-          "which live in HBM on real hardware)")
+          "which live in device memory on an accelerator)")
     # measured 2114 vs 1973 MB at 1M matches on CPU: the accumulation
     # term is ~140 B/match (neurons are shared refs) and streaming
     # removes it; require the term to stay visible and removed

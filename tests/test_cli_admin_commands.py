@@ -5,6 +5,8 @@ from pathlib import Path
 
 import pytest
 
+from tests.conftest import reference_fixture
+
 PPP_FIXTURES = ("/root/reference/colormipsearch-api/src/test/resources/"
                 "colormipsearch/api/pppsearch")
 LEGACY = ("/root/reference/colormipsearch-api/src/test/resources/"
@@ -18,6 +20,7 @@ def run_cli(*argv):
 
 
 def test_legacy_import_fs(tmp_path):
+    reference_fixture(LEGACY)
     out = tmp_path / "v3"
     run_cli("legacyImport", "-rf", LEGACY,
             "--mask-library", "FlyEM Hemibrain",
@@ -39,6 +42,7 @@ def test_legacy_import_fs(tmp_path):
 
 
 def test_legacy_import_db(tmp_path):
+    reference_fixture(LEGACY)
     cfg = tmp_path / "c.properties"
     cfg.write_text(f"Store.Path={tmp_path}/db.sqlite\n")
     run_cli("legacyImport", "-rf", LEGACY, "--results-storage", "DB",
@@ -94,6 +98,7 @@ def test_copy_to_mips_store(tmp_path):
 
 
 def test_convert_ppp(tmp_path):
+    reference_fixture(PPP_FIXTURES)
     out = tmp_path / "ppp_v2"
     run_cli("convertPPPResults", "-rd", PPP_FIXTURES, "-od", out)
     files = sorted(out.glob("*.json"))
@@ -112,6 +117,7 @@ def test_legacy_import_suspicious_tagging(tmp_path):
     """Neurons created by the import get --imported-neuron-tag; matches
     referencing created neurons get --suspicious-match-tag
     (ImportV2CDMatchesCmd:255-278)."""
+    reference_fixture(LEGACY)
     cfg = tmp_path / "c.properties"
     cfg.write_text(f"Store.Path={tmp_path}/db.sqlite\n")
     run_cli("legacyImport", "-r", LEGACY, "--results-storage", "DB",

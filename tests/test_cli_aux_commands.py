@@ -6,6 +6,8 @@ from pathlib import Path
 
 import pytest
 
+from tests.conftest import MASK_TIF, TARGET_TIF, reference_fixture
+
 PPP_FIXTURES = ("/root/reference/colormipsearch-api/src/test/resources/"
                 "colormipsearch/api/pppsearch")
 
@@ -16,6 +18,7 @@ def run_cli(*argv):
 
 
 def test_import_ppp_results(tmp_path):
+    reference_fixture(PPP_FIXTURES)
     out = tmp_path / "ppp"
     run_cli("importPPPResults", "-rd", PPP_FIXTURES,
             "--em-library", "flyem_hemibrain_1_2_1",
@@ -147,6 +150,7 @@ def test_tag_command(tmp_path):
 
 
 def test_export_ppp_matches(tmp_path):
+    reference_fixture(PPP_FIXTURES)
     imported = tmp_path / "ppp"
     run_cli("importPPPResults", "-rd", PPP_FIXTURES,
             "--em-library", "hemibrain", "--lm-library", "mcfo",
@@ -191,6 +195,7 @@ def test_export_with_published_urls(tmp_path):
 def test_import_ppp_screenshots_and_db_resolution(tmp_path):
     """Screenshot attachment (lookupScreenshots) + DB mask resolution +
     PPPMatch processing tags (ImportPPPResultsCmd DB mode)."""
+    reference_fixture(PPP_FIXTURES)
     import shutil
 
     from colormipsearch_tpu.model import EMNeuron, ProcessingType
@@ -307,6 +312,7 @@ def test_export_db_read_path_with_url_transforms(tmp_path):
 def test_import_ppp_jacs_sample_enrichment(tmp_path):
     """--jacs-url resolves LM sample publishing names / slide codes
     (CachedDataHelper.retrieveLMSamplesByName + updateLMSampleInfo)."""
+    reference_fixture(PPP_FIXTURES)
     dump = tmp_path / "dump"
     dump.mkdir()
     (dump / "data_samples_0.json").write_text(json.dumps([
@@ -464,6 +470,7 @@ def test_ppp_lm_anatomical_area_suffix():
 def test_create_data_input_neuron_filters(tmp_path):
     """--tag / --excluded-neurons / --included-neurons on
     createColorDepthSearchDataInput."""
+    reference_fixture()
     import shutil
 
     fix = ("/root/reference/colormipsearch-api/src/test/resources/"
@@ -757,6 +764,7 @@ def test_export_mips_fs_and_db(tmp_path):
 def test_export_ppp_matches_db(tmp_path):
     """EM_PPP_MATCHES --results-storage DB: rows come from the
     pppMatches store collection (EMPPPMatchesExporter DB path)."""
+    reference_fixture(PPP_FIXTURES)
     cfg = tmp_path / "c.properties"
     cfg.write_text(f"Store.Path={tmp_path}/db.sqlite\n")
     run_cli("importPPPResults", "-rd", PPP_FIXTURES,
@@ -816,12 +824,12 @@ def test_v2_gradient_score_device_equals_oracle(tmp_path):
     """v2 gradientScore through the split device kernel == the float64
     oracle (and the --no-use-device oracle path), zgap fallback incl.
     (cmd_v2/CalculateNegativeScoresCmd.java:107-331)."""
+    reference_fixture(MASK_TIF, TARGET_TIF)
     import shutil
 
     import numpy as np
     from PIL import Image
 
-    from tests.conftest import MASK_TIF, TARGET_TIF
 
     lib = tmp_path / "lib"
     lib.mkdir()
@@ -906,6 +914,7 @@ def test_raw_ppp_reader_both_fixtures_both_modes():
     """RawPPPMatchesReaderTest: both cov_scores fixtures parse in best-
     and all-skeleton modes; every row carries the file's EM neuron name
     and a non-null LM name (RawPPPMatchesReader.java:36-79)."""
+    reference_fixture(PPP_FIXTURES)
     from colormipsearch_tpu.io.ppp import read_raw_ppp_matches
 
     for fname in ("cov_scores_1599747200-PFNp_c-RT_18U.json",
@@ -1032,6 +1041,7 @@ def test_v2_mips_with_variants_fixture():
     """MIPsUtilsTest.loadMIPsWithVariants on the reference fixture: every
     MIP carries variants and a sampleRef; the variants dict resolves to
     loadable (zip-entry aware) FileData via variantAsMIP semantics."""
+    reference_fixture()
     from colormipsearch_tpu.dataio.v2_io import read_mips_json
 
     path = ("/root/reference/colormipsearch-api/src/test/resources/"
@@ -1055,12 +1065,12 @@ def test_v2_gradient_score_variants_dict(tmp_path):
     """v2 gradientScore resolves gradient images from the target MIP's
     own variants dictionary — no --gradientPath needed
     (MIPsUtils.getMIPVariantInfo:223-228 variantAsMIP preference)."""
+    reference_fixture(MASK_TIF, TARGET_TIF)
     import shutil
 
     import numpy as np
     from PIL import Image
 
-    from tests.conftest import MASK_TIF, TARGET_TIF
     from colormipsearch_tpu.io.image import read_image
 
     lib = tmp_path / "lib"
@@ -1101,12 +1111,12 @@ def test_v2_gradient_score_packed_store_reuse(tmp_path, monkeypatch):
     """v2 gradientScore with --packed-variants-store: the second run
     serves every target from the store (no image decode) and produces
     identical scores — same decode-once semantics as the v3 command."""
+    reference_fixture(MASK_TIF, TARGET_TIF)
     import shutil
 
     import numpy as np
     from PIL import Image
 
-    from tests.conftest import MASK_TIF, TARGET_TIF
 
     lib = tmp_path / "lib"
     lib.mkdir()

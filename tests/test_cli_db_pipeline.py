@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from tests.conftest import MASK_TIF, TARGET_TIF
+from tests.conftest import MASK_TIF, TARGET_TIF, reference_fixture
 
 
 def run_cli(*argv):
@@ -21,6 +21,7 @@ def env(tmp_path):
     from colormipsearch_tpu.io.image import read_image
     from colormipsearch_tpu.oracle.shape import dilate_rgb, mask_rgb
 
+    reference_fixture(MASK_TIF, TARGET_TIF)
     lib = tmp_path / "lib"
     grad = tmp_path / "grad"
     zgap = tmp_path / "zgap"

@@ -13,11 +13,12 @@ from pathlib import Path
 
 import pytest
 
-from tests.conftest import MASK_TIF, TARGET_TIF
+from tests.conftest import MASK_TIF, TARGET_TIF, reference_fixture
 
 
 @pytest.fixture()
 def fixture_library(tmp_path):
+    reference_fixture(MASK_TIF, TARGET_TIF)
     lib = tmp_path / "lib"
     lib.mkdir()
     shutil.copy(MASK_TIF, lib / Path(MASK_TIF).name)

@@ -8,11 +8,12 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from tests.conftest import MASK_TIF, TARGET_TIF
+from tests.conftest import MASK_TIF, TARGET_TIF, reference_fixture
 
 
 @pytest.fixture()
 def pipeline_dirs(tmp_path):
+    reference_fixture(MASK_TIF, TARGET_TIF)
     from colormipsearch_tpu.io.image import read_image
     from colormipsearch_tpu.oracle.shape import dilate_rgb, mask_rgb
 
@@ -106,6 +107,7 @@ def test_precompute_variants_roundtrip(tmp_path):
     """precomputeVariants output feeds gradientScores: the generated
     zgap must be bit-identical to the on-the-fly dilation fallback, so
     scoring with precomputed variants == scoring without them."""
+    reference_fixture(TARGET_TIF)
     from colormipsearch_tpu.io.image import read_image
     from colormipsearch_tpu.oracle.shape import dilate_rgb, mask_rgb
 
@@ -206,9 +208,9 @@ def test_gradient_scores_golden_381229(tmp_path):
     (dilate(mask(target,20), r=20)) must give gradientAreaGap 381229,
     highExpressionArea 0, normalizedScore 100.0 (single match -> max
     normalization)."""
+    reference_fixture(MASK_TIF, TARGET_TIF)
     import shutil
 
-    from tests.conftest import MASK_TIF, TARGET_TIF
     from colormipsearch_tpu.io.image import read_image
     from colormipsearch_tpu.oracle.shape import dilate_rgb, mask_rgb
 

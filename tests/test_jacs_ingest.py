@@ -4,6 +4,8 @@ import json
 
 import pytest
 
+from tests.conftest import reference_fixture
+
 
 def run_cli(*argv):
     from colormipsearch_tpu.cli.main import main
@@ -199,6 +201,7 @@ def test_jacs_library_and_mip_filters(tmp_path):
 
 def test_create_data_input_for_update(tmp_path):
     """--for-update merges into an existing output file by mipId."""
+    reference_fixture()
     import shutil
     from pathlib import Path
 

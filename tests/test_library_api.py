@@ -3,10 +3,11 @@
 import shutil
 from pathlib import Path
 
-from tests.conftest import MASK_TIF, TARGET_TIF
+from tests.conftest import MASK_TIF, TARGET_TIF, reference_fixture
 
 
 def test_color_depth_search_api(tmp_path):
+    reference_fixture(MASK_TIF, TARGET_TIF)
     import colormipsearch_tpu as cms
 
     lib = tmp_path / "lib"

@@ -8,6 +8,7 @@ import pytest
 from PIL import Image
 
 from colormipsearch_tpu.io import native_decoder
+from tests.conftest import reference_fixture
 
 FIXDIR = ("/root/reference/colormipsearch-api/src/test/resources/"
           "colormipsearch/api/imageprocessing")
@@ -44,6 +45,7 @@ def test_decode_matches_pil(path):
 
 
 def test_row_range_decode():
+    reference_fixture(FIXDIR)
     path = all_fixture_tiffs()[0]
     data = open(path, "rb").read()
     full = native_decoder.decode_tiff(data)
@@ -135,6 +137,7 @@ def test_coo_select_equals_numpy():
 
 
 def test_read_image_uses_native(tmp_path):
+    reference_fixture(CDSDIR)
     from colormipsearch_tpu.io.image import read_image
 
     path = all_fixture_tiffs()[0]

@@ -861,41 +861,41 @@ def test_interval_slot_compaction():
     assert fp.lane_lo.shape[1] <= 2
 
 
-def test_full_union_chunked_forms_identical(monkeypatch):
-    """The chunked software-pipelined union (round 5) must produce
-    bit-identical per-variant counts across CDS_UNION_CHUNKS=0
-    (unchunked), the auto default, and forced chunk counts — the
-    chunking only changes summation grouping of exact int32 adds."""
+@pytest.mark.parametrize("seed,mirror", [(41, True), (42, True),
+                                         (43, False), (44, True)])
+def test_full_union_forms_identical(seed, mirror):
+    """The full-union scorer: the slot-2 segmented form (tests on the
+    u2 prefix only) and the full-width form give identical per-variant
+    counts, and the batched best score and mirrored flag equal the
+    float64 oracle's on every target."""
     import jax.numpy as jnp
 
-    rng = np.random.default_rng(41)
+    rng = np.random.default_rng(seed)
     h, w = 40, 60
     query = _mk(rng, h, w, 400)
     targets = [_mk(rng, h, w, 300) for _ in range(6)] + [query]
     thr, flu = 20, 1.0
 
     fp = pixel_match.build_full_union_key_plan(
-        query, thr, mirror=True, xy_shift=2, pix_color_fluctuation=flu)
+        query, thr, mirror=mirror, xy_shift=2, pix_color_fluctuation=flu)
     t_keys = common.pack_target_planes_keys(
         jnp.asarray(np.stack(targets)), thr, common.rank_lut_device())
+    args = (t_keys, jnp.asarray(fp.u_pos), jnp.asarray(fp.mu_pos),
+            jnp.asarray(fp.lane_lo), jnp.asarray(fp.lane_span))
     u2 = fp.u2 if fp.u2 is not None and fp.u2 >= 0 else None
+    seg = np.asarray(pixel_match.score_query_union_keys_raw(*args, u2=u2))
+    full = np.asarray(pixel_match.score_query_union_keys_raw(*args))
+    assert (seg == full).all()
 
-    def run():
-        # fresh trace per env setting (the bounds are baked at trace
-        # time, so jitted caches must not be reused across settings)
-        return np.asarray(pixel_match.score_query_union_keys_raw(
-            t_keys, jnp.asarray(fp.u_pos), jnp.asarray(fp.mu_pos),
-            jnp.asarray(fp.lane_lo), jnp.asarray(fp.lane_span), u2=u2))
-
-    monkeypatch.setenv("CDS_UNION_CHUNKS", "0")
-    ref = run()
-    for setting in (None, "2", "4", "7"):
-        if setting is None:
-            monkeypatch.delenv("CDS_UNION_CHUNKS")
-        else:
-            monkeypatch.setenv("CDS_UNION_CHUNKS", setting)
-        got = run()
-        assert (got == ref).all(), setting
+    best, mirrored, _ = pixel_match.score_query_batch_union_keys(
+        *[a if i == 0 else a[None] for i, a in enumerate(args)], u2=u2)
+    oracle = PixelMatchOracle(query, thr, mirror=mirror,
+                              target_threshold=thr, z_tolerance=flu / 100,
+                              xy_shift=2)
+    for t, img in enumerate(targets):
+        res = oracle.score(img)
+        assert int(best[0, t]) == res.matching_pixels, t
+        assert bool(mirrored[0, t]) == res.mirrored, t
 
 
 def test_expansion_chunked_vmap_identical(monkeypatch):

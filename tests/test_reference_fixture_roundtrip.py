@@ -4,11 +4,14 @@ grouping + writers (mirrors persist dataio/fs/JSONReadWriteTest)."""
 import json
 from pathlib import Path
 
+from tests.conftest import reference_fixture
+
 FIXTURE = ("/root/reference/colormipsearch-persist/src/test/resources/"
            "cdsmatches/testcdsmatches.json")
 
 
 def test_reference_matches_roundtrip(tmp_path):
+    reference_fixture(FIXTURE)
     from colormipsearch_tpu.dataio.json_io import (
         JSONMatchesReader,
         JSONMatchesWriter,

@@ -11,6 +11,8 @@ documented ImageJ line radii in test_oracle_shape.py).
 import numpy as np
 import pytest
 
+from tests.conftest import reference_fixture
+
 from colormipsearch_tpu.io.image import read_image
 from colormipsearch_tpu.oracle.pixel import label_regions_mask
 from colormipsearch_tpu.oracle.shape import (
@@ -23,6 +25,11 @@ from colormipsearch_tpu.oracle.shape import (
 
 FIXDIR = ("/root/reference/colormipsearch-api/src/test/resources/"
           "colormipsearch/api/imageprocessing")
+
+
+@pytest.fixture(autouse=True)
+def _fixture_dir():
+    reference_fixture(FIXDIR)
 
 
 def _bruteforce_dilate(img: np.ndarray, radius: float) -> np.ndarray:

@@ -4,7 +4,14 @@ import json
 import zipfile
 from pathlib import Path
 
-from tests.conftest import MASK_TIF, TARGET_TIF
+import pytest
+
+from tests.conftest import MASK_TIF, TARGET_TIF, reference_fixture
+
+
+@pytest.fixture(autouse=True)
+def _fixture_tiffs():
+    reference_fixture(MASK_TIF, TARGET_TIF)
 
 
 def run_cli(*argv):
